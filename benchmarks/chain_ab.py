@@ -2,7 +2,7 @@
 
 Times chained crz encode at the official block geometry with the
 speculation on (default) vs off (CPX_CHAIN_SPEC=0 = the round-3
-sequential behavior the 0.12 MB/s ledger number measured), asserts the
+sequential behavior), asserts the
 archives are byte-identical, and prints both rates.
 
 Usage: python benchmarks/chain_ab.py [MB] [BLOCK_MB] [LANES]

@@ -1,8 +1,7 @@
-"""XLA random-access cost model on the real chip: row gather / row-delta
+"""XLA random-access cost model on the device: row gather / row-delta
 scatter-add cost vs table size, row width, and lane count.  These are the
-primitives the codec scan is built from (PERF.md); the megakernel probes
-showed Pallas cannot beat XLA's gather engine, so THESE numbers bound any
-design.
+primitives the codec scan is built from (PERF.md).  Whether a hand-written
+kernel beats XLA's gathers on the GPU is open (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
-"""comprox_tpu — a TPU-native lossless data compression framework.
+"""comprox_tpu — an accelerator-native lossless data compression framework.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of the
+A from-scratch JAX/XLA re-architecture of the capabilities of the
 reference C suite (richox/comprox: LZ77/ROLZ/LZP matching + PPM context
 modeling + carry-correct range coding, see /root/reference/src).  Instead of
-one sequential symbol loop with helper pthreads, the TPU design makes
+one sequential symbol loop with helper pthreads, this design makes
 *lane-interleaved independent coding streams* the primitive: S rANS streams
-advance in lock-step across VPU lanes, adaptive model tables live in HBM and
-update via deterministic vectorized scatter, and 16 MiB blocks shard
+advance in lock-step as vector lanes, adaptive model tables live in device
+memory and update via deterministic vectorized scatter, and 16 MiB blocks shard
 data-parallel across a device mesh.
 
 Layering (mirrors SURVEY.md §7):

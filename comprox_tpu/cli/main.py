@@ -13,7 +13,7 @@ binaries from one core, Makefile:14-27):
     python -m comprox_tpu.cli.main  crx ...   # LZ77 codec  (~comprox)
     python -m comprox_tpu.cli.main  crz ...   # ROLZ codec  (~comprolz)
     python -m comprox_tpu.cli.main  crf ...   # fast static-table codec
-                                              # (TPU-native; no ref analogue)
+                                              # (no ref analogue)
 """
 
 from __future__ import annotations

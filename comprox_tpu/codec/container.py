@@ -1,12 +1,12 @@
 """Container format + file driver.
 
-TPU re-architecture of the reference file driver (/root/reference/src/
-main.c:89-305): magic header, optional dictionary blob, then a sequence of
+Data-parallel re-architecture of the reference file driver (richox/comprox
+src/main.c:89-305): magic header, optional dictionary blob, then a sequence of
 independently coded blocks with per-block headers and a stored-block
 fallback (roxmain/cr-coder.c:273-275).  One deliberate format change vs the
 reference (SURVEY.md §5 checkpoint/resume): model state resets **per block**,
 making every block an independently decodable unit — this is what unlocks
-block-level data parallelism across a TPU mesh and restartable decode.
+block-level data parallelism across a device mesh and restartable decode.
 
 Layout (all little-endian):
 

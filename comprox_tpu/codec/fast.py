@@ -1,20 +1,18 @@
-"""Mode 'F': the TPU-native fast profile — LZ77 tokens + per-block STATIC
+"""Mode 'F': the fast profile — LZ77 tokens + per-block STATIC
 rANS, round-4 architecture ("F2").
 
 The round-3 fast profile still decoded one BYTE per lane per scan step and
-re-ranked static tables with [S, W] compares; its measured wall was 0.79
-MB/s encode / 7 MB/s decode (PERF.md) — the sort-finder's ~50 whole-array
-element gathers dominating encode, and the per-byte copy machinery plus
-4 slot reads dominating decode.  F2 restructures both sides around what
-the chip is measured to do well:
+re-ranked static tables with [S, W] compares — the sort-finder's ~50
+whole-array element gathers dominating encode, and the per-byte copy
+machinery plus
+4 slot reads dominating decode.  F2 restructures both sides around
+whole-block vector passes:
 
 encode (all whole-block vector passes, no per-byte scan):
   1. sort-based candidate finder, rebuilt on 64-byte ROW gathers: a
      [N/4, 16]-word sliding table makes one row gather deliver a full
-     64-byte candidate window (measured flat in width vs ~50 ms per
-     element gather at 8M), so K candidates cost K gathers, not K*16;
-  2. the shared flexible price-DP parse (block._parse_body — measured
-     ~2% of encode);
+     64-byte candidate window, so K candidates cost K gathers, not K*16;
+  2. the shared flexible price-DP parse (block._parse_body);
   3. a slim replay scan derives token boundaries; tokens are compacted
      to flat arrays with one scatter (token = literal byte | match);
   4. one histogram pass -> static tables (normalize_freqs);
@@ -50,7 +48,8 @@ to sum exactly M); the decoder validates the sum, rebuilds the slot
 table, and the drain + content-CRC checks are the corruption detectors.
 
 No reference analogue: richox/comprox has no fast profile; this is the
-capability a TPU deployment needs to cover the zstd/gzip speed class with
+capability an accelerator deployment needs to cover the zstd/gzip speed
+class with
 the same container, dictionary, and lane-interleaved entropy layer.
 """
 
@@ -114,7 +113,7 @@ _F_PRICES = tuple(
 # further tokens)
 _EXTW = int(_os.environ.get("CPX_F_EXTW", "16"))
 # include _diag_run_len's final-byte extension (one [N] gather per
-# candidate; ~67 ms at 8 MiB on the v5e).  Measured ratio-identical to 4
+# candidate).  Measured ratio-identical to 4
 # decimals at 2 MiB with it off — lengths at most 1 short, and only on
 # diagonal-run boundaries — so the fast profile defaults it off.
 _F_DIAG_TAIL = _os.environ.get("CPX_F_DIAG_TAIL", "0") == "1"
@@ -126,8 +125,7 @@ def _search_params(p: BlockParams) -> BlockParams:
 
 
 def _flat_excl_cumsum(x):
-    """[N] i32 exclusive prefix sum (Hillis-Steele doubling; jnp.cumsum
-    lowers to a sequential loop on TPU — PERF.md)."""
+    """[N] i32 exclusive prefix sum (Hillis-Steele doubling)."""
     n = x.shape[0]
     acc = x
     k = 1
@@ -201,8 +199,8 @@ def _f2_find(p: BlockParams, inp_flat, n):
         pk = jnp.concatenate([jnp.full((k,), -1, _i32), ps[:-k]])
         hk = jnp.concatenate([jnp.zeros((k,), _u32), hs[:-k]])
         prevs.append(jnp.where(hk == hs, pk, -1))
-    # back to position order by SORTING on ps (a permutation): a second
-    # 2.3 ms sort replaces an 85 ms [N, K] scatter (measured, v5e)
+    # back to position order by SORTING on ps (a permutation; keys are
+    # unique, so stability does not matter) instead of an [N, K] scatter
     unsorted = jax.lax.sort((ps,) + tuple(prevs), num_keys=1)
     cand_cols = unsorted[1:]
     # sliding row table: rows[r, k] = word at byte 4*(r + k) — one row
@@ -330,8 +328,8 @@ def _tokenize(p: BlockParams, ev, n):
         lenf << 10
     )
     # compact token starts to the front by a stable sort on the one-bit
-    # key "not a start" — an 83 ms [N, 2] scatter replaced by a ~3 ms
-    # sort (measured, v5e); stability preserves position == token order
+    # key "not a start" instead of an [N, 2] scatter; stability preserves
+    # position == token order
     key = 1 - sf
     _, e0_s, dist_s = jax.lax.sort(
         (key, e0, distf), num_keys=1, is_stable=True
@@ -405,9 +403,12 @@ def _uniform_cf(tbits, val):
 def _rev_window_write(emit, word, buf, cur, win: int):
     """Deposit this slot's emitted words (lane-DESC order — the exact
     reverse of the decoder's lane-ASC window read) into buf at cur via a
-    transposed one-hot dot.  Words are byte-split so the single-pass
-    (default-precision, bf16 on TPU) dot is exact: operands are 0/1 and
-    < 256, accumulation is f32 and < 2^24.
+    transposed one-hot dot.  Words are byte-split so a reduced-precision
+    dot is exact: operands are 0/1 and < 256 (TF32 keeps 11 significant
+    bits, bf16 8), accumulation is f32 and each output element has at most
+    one nonzero term.  Precision.DEFAULT (TF32 on the GPU, f32 on the CPU)
+    is named explicitly, so jax_default_matmul_precision cannot change
+    it.
 
     ``win < S`` shrinks the [S, win] one-hot (the dominant per-step cost
     of the encode loop); a slot-step emitting more than win words would
@@ -432,7 +433,10 @@ def _rev_window_write(emit, word, buf, cur, win: int):
         axis=-1,
     )
     seg = jnp.dot(
-        oh.T.astype(jnp.float32), lohi, preferred_element_type=jnp.float32
+        oh.T.astype(jnp.float32),
+        lohi,
+        precision=jax.lax.Precision.DEFAULT,
+        preferred_element_type=jnp.float32,
     )
     seg16 = (
         seg[:, 0].astype(_u32) | (seg[:, 1].astype(_u32) << 8)
@@ -784,9 +788,8 @@ def decode_block_fast(payload: bytes, n: int, p: BlockParams) -> np.ndarray:
 
 
 # ---- grouped APIs (container -g / mesh path): F2's per-block passes are
-# already whole-block parallel, and round-3 G-batch vmapping measured
-# neutral-to-negative on the v5e (PERF.md) — these loop with the one-
-# block-in-flight pipeline instead.
+# already whole-block parallel, so these loop with the one-block-in-flight
+# pipeline instead of vmapping G blocks.
 
 
 def encode_blocks_fast(blocks: list, p: BlockParams, group: int) -> list:

@@ -1,14 +1,14 @@
 """Batched PPM compound model — o1 + o2 + o3-predictor, S lanes in lock-step.
 
-TPU re-architecture of the reference literal coder (/root/reference/src/
-cr-ppm.c:103-235 and cr-o2model.c): the per-context freq tables become HBM
-arrays indexed by every lane's own context, advanced once per step for all S
-lanes with deterministic batched updates (see models/tables.py for the
+Data-parallel re-architecture of the reference literal coder (richox/comprox
+src/cr-ppm.c:103-235 and cr-o2model.c): the per-context freq tables become
+device arrays indexed by every lane's own context, advanced once per step
+for all S lanes with deterministic batched updates (see models/tables.py for the
 collision rules).
 
 Symbol space of the primary ("A") event, coded under the order-2 context
 (prev 2 bytes), mirrors the reference's 258-symbol alphabet plus one
-TPU-native extension:
+lock-step extension:
 
     0..255  literal byte            (cr-o2model.c slots 0-255)
     256     o3 predictor matched    (cr-ppm.c:118-125)
@@ -41,7 +41,7 @@ O2_W = 260
 SYM_HIT = 256
 SYM_ESC = 257
 SYM_MATCH = 258
-SYM_HIT2 = 259  # secondary o3 prediction matched (2-way entry; TPU-native
+SYM_HIT2 = 259  # secondary o3 prediction matched (2-way entry; lock-step
 # extension: lock-step lanes interleave 256 streams through the shared o3
 # table, and the reference's 1-deep replace-style entry loses ~13% of its
 # sequential hit rate to cross-lane replacement (measured: 748k hits
@@ -100,10 +100,8 @@ def init_tables(match_enabled: bool, o3_bits: int = 22) -> dict:
         "o2": tb.make_table(O2_NCTX, O2_W, o2_row),
         "o1": tb.make_table(O1_NCTX, O1_NCTX, jnp.ones((O1_NCTX,), _i32)),
         # conf<<8 | pred per hashed o3 context, init pred=0 conf=0.  Shaped
-        # [o3_size/128, 128] so reads/writes are ROW ops: the 1-D element
-        # scatter was the single largest decode step cost on TPU (46 us vs
-        # 26 us for the o2 260-wide ROW scatter — element scatters
-        # serialize, row-delta scatters vectorize; PERF.md round 2)
+        # [o3_size/128, 128] so reads/writes are ROW ops (row-delta
+        # scatters vectorize where 1-D element scatters serialize)
         "o3": jnp.zeros((o3_size >> 7, 128), _i32),
         "len": jnp.ones((N_SHARED_CTX, LEN_W), _i32),
         "idx": jnp.ones((N_SHARED_CTX, IDX_W), _i32),
@@ -267,8 +265,8 @@ def read_o2(
     the predicted byte's slot zeroed; escape slot is clamped >= 1
     read-locally (it can be driven negative by escape elimination).
     ``halve_delta`` carries the rescale as per-winner row deltas so the
-    caller folds it into ONE fused scatter-add with the increments (TPU
-    scatters serialize per index — one scatter per table per step).
+    caller folds it into ONE fused scatter-add with the increments (one
+    scatter per table per step).
 
     With CONF_BOOST, a confident o3 predictor ceil-shifts every non-hit
     slot down (read-time only, both sides identical), raising the coded
@@ -336,8 +334,9 @@ def read_o1_excl(t, p1, o2_rows, pred, esc_mask, pred2=None, valid2=None):
     o1 = jnp.where(need[:, None], (o1 + 1) >> 1, o1)
     t = dict(t)
     t["o1"] = o1
-    # row read as a one-hot matmul: exact at Precision.HIGHEST (0/1 times
-    # int < 2^24, see models/tables.py) and avoids a serialized gather
+    # row read as a one-hot matmul instead of a per-lane gather: exact at
+    # Precision.HIGHEST (true fp32 on every backend; 0/1 times int < 2^24,
+    # one nonzero term per output element)
     oh = (
         jax.lax.broadcasted_iota(_i32, (p1.shape[0], O1_NCTX), 1)
         == p1[:, None]
@@ -421,7 +420,7 @@ def _read_shared_ctx(t, mask, key, cap, ctx, n_ctx=N_SHARED_CTX):
 # where matches never fire — the sse_probe.py capture measured that waste
 # at ~30% of the match-flag bits (~2.6% of ALL model bits) on doc text.
 # The fix is the classic SSE/APM rung above PPM (lpaq's APM_t), built
-# TPU-native: a dense [SSE_NCTX, 33] probability table on a stretch-
+# for lock-step lanes: a dense [SSE_NCTX, 33] probability table on a stretch-
 # quantized scale, 2-point interpolated read, rate-1/32 update — all
 # in-row selects and masked reductions, zero random access, identical
 # integer arithmetic on both sides.  Read-time only (like CONF_BOOST):
@@ -469,8 +468,8 @@ SSE_RATE_SH = 5  # update rate 2^-5 per event
 # probability clamp (16-bit fixed point).  LO must reach the stretch
 # scale's bottom bin: the match-flag win comes from driving p(match)
 # toward 0 in empty-bucket contexts, and an LO of 256 (p >= 1/256)
-# forfeited ~3/4 of the probe's predicted savings (measured on-chip:
-# -0.44% bpb at LO=256 vs the probe's ~-2%; see PERF).
+# forfeited ~3/4 of the probe's predicted savings (measured: -0.44% bpb
+# at LO=256 vs the probe's ~-2%; see PERF).
 SSE_LO, SSE_HI = 16, 65520
 # squash((j-16)/2) for j in 0..32, 16-bit fixed point (hardcoded so both
 # sides share exact integers)
@@ -554,7 +553,7 @@ def sse_p_ctx_of(conf, avail, p1):
 def _apm_read(sse_flat, n_ctx, ctx, p16):
     """Shared APM machinery: stretch-quantize p16 to (bin i, weight w),
     read the 2 interpolation points from the flat [n_ctx * 33] table with
-    masked reductions (per-lane gathers serialize on TPU; PERF.md), and
+    masked reductions (no per-lane gathers), and
     return (p_sse16, flat_index, w, t_i, t_ip1) for the paired update."""
     k = n_ctx * 33
     s_lanes = p16.shape[0]
@@ -713,11 +712,10 @@ def apply_updates(
 ):
     """All model updates for one step, after the events are coded.
 
-    TPU scatters serialize per index, so each table gets at most ONE
-    scatter: o2 folds the rescale delta and all increments into a single
-    row-delta scatter-add; o1 and the shared len/idx/dst rows update with
-    dense one-hot arithmetic (no scatter at all); o3 keeps its single
-    deduplicated write.
+    Each table gets at most ONE scatter: o2 folds the rescale delta and
+    all increments into a single row-delta scatter-add; o1 and the shared
+    len/idx/dst rows update with dense one-hot arithmetic (no scatter at
+    all); o3 keeps its single deduplicated write.
     """
     is_lit = coding & (sym_a < 256)
     is_hit = coding & (sym_a == SYM_HIT)
@@ -751,7 +749,7 @@ def apply_updates(
         delta = delta + o2_halve_delta
     t["o2"] = t["o2"].at[ctx2].add(delta, mode="drop")
 
-    # --- o1: dense one-hot outer product on the MXU -------------------------
+    # --- o1: dense one-hot outer product as a matmul -----------------------
     oh_ctx = (
         jax.lax.broadcasted_iota(_i32, (s_lanes, O1_NCTX), 1)
         == p1[:, None]
@@ -760,11 +758,14 @@ def apply_updates(
         jax.lax.broadcasted_iota(_i32, (s_lanes, O1_NCTX), 1)
         == byte[:, None]
     )
-    # EXACT in any matmul precision: inputs are 0/1 (bf16-representable),
-    # accumulation is f32, counts <= S
+    # exact at reduced precision: inputs are 0/1 (exact in TF32 and bf16),
+    # accumulation is f32 and counts <= S < 2^24.  Precision.DEFAULT (TF32
+    # on the GPU, f32 on the CPU) is named so that
+    # jax_default_matmul_precision cannot change it
     d1 = jnp.dot(
         oh_ctx.astype(jnp.float32).T,
         oh_sym.astype(jnp.float32),
+        precision=jax.lax.Precision.DEFAULT,
         preferred_element_type=jnp.float32,
     ).astype(_i32)
     t["o1"] = t["o1"] + d1 * INC1
@@ -870,8 +871,7 @@ def apply_updates(
     # Winner-dedup (same-context lanes are common on text; summed deltas
     # measured -2.7% ratio on crx) + ROW-delta scatter-add: the winner
     # lane's delta = desired - current replays a sequential write exactly,
-    # while the ROW-shaped add avoids the 1-D element scatter that was the
-    # single largest decode step cost (46 us; PERF.md round 2).
+    # while the ROW-shaped add avoids a 1-D element scatter.
     winners = tb.elect_winners(h3, o3_upd)
     # raw stored value makes the delta an exact set; callers without it
     # fall back to the reconstructed clamp (identical unless garbage)

@@ -65,15 +65,14 @@ def elect_winners(idx, mask):
     """Deterministically pick one lane per distinct ``idx`` among ``mask``
     (the minimum lane index wins, matching sequential tie-breaking).
 
-    Sort-based: a stable argsort over S keys costs O(S log S) on small
-    per-lane vectors and — unlike the scatter-min/restore scratch pattern —
-    touches no large arrays (scatters on multi-MB scan carries forced
-    whole-array copies every step on TPU).
+    Up to 1024 lanes an O(S^2) masked compare (elementwise work that
+    fuses); beyond, a stable argsort over the S keys.  Neither touches the
+    tables themselves (a scatter-min/restore scratch pattern on a
+    multi-MB scan carry would).  Which is faster on the GPU is not yet
+    measured.
     """
     s = idx.shape[0]
     if s <= 1024:
-        # O(S^2) masked compare: pure elementwise VPU work that fuses,
-        # beating both sort lowering and scatter-based scratch patterns
         dup = (
             (idx[:, None] == idx[None, :])
             & mask[None, :]
@@ -91,15 +90,15 @@ def elect_winners(idx, mask):
 import os as _os
 
 _TRI_CACHE: dict = {}
-# Prefix sums as MXU matmuls: jnp.cumsum lowers to a SEQUENTIAL loop on
-# TPU (~29us for [256,260]) and Hillis-Steele costs ~log2(W) dependent
-# vector rounds.  A DEFAULT-precision f32 matmul is NOT exact on TPU (MXU
-# f32 dots run as single-pass bf16 — this corrupted streams on-chip while
-# passing on CPU), but Precision.HIGHEST decomposes each operand into
-# bf16 parts exactly; with a 0/1 triangular matrix and integer row values
-# < 2^24 every partial product and f32 accumulation is exact.  The rANS
-# drain invariant fails loudly if any backend ever violates this.
-# CPX_NO_MATMUL_CUMSUM=1 falls back to the integer ladder.
+# Prefix sums as matmuls with a 0/1 triangular matrix, or as an integer
+# Hillis-Steele ladder (~log2(W) dependent vector rounds).  The matmul
+# runs at Precision.HIGHEST, true fp32 on every backend: with integer row
+# values < 2^24 every partial product and f32 accumulation is exact.  A
+# reduced-precision dot would NOT be (TF32 keeps 11 significant bits,
+# bf16 8).  The rANS drain invariant fails loudly if any backend ever
+# violates this.  On the H100 the matmul form measured 0.6-3.2% faster per
+# crz decode step (PERF.md, stream-read table); CPX_NO_MATMUL_CUMSUM=1
+# selects the integer ladder.
 _MATMUL_CUMSUM = _os.environ.get("CPX_NO_MATMUL_CUMSUM") != "1"
 
 
@@ -141,9 +140,8 @@ def cum_frq_of(rows, cums, sym):
     """(cum, frq) for a known symbol per lane.
 
     One-hot where-sum instead of take_along_axis: per-lane element
-    selects lower to ~5.4 us gather fusions in a scan body (6 of them
-    cost ~12% of a decode step, profile r2); the masked reduce is pure
-    VPU work that fuses."""
+    selects lower to gathers in a scan body; the masked reduce is
+    elementwise work that fuses."""
     sel = (
         jax.lax.broadcasted_iota(jnp.int32, rows.shape, rows.ndim - 1)
         == sym[..., None]

@@ -3,10 +3,10 @@
 Bit-exact vectorization of :mod:`comprox_tpu.ops.rans_scalar` across S
 independent lanes.  Each lane carries a uint32 state; per coding step a lane
 emits (encode) or consumes (decode) at most one u16 word.  All lanes' words
-interleave into one compact stream in (step, lane) order — the TPU-native
+interleave into one compact stream in (step, lane) order — the data-parallel
 generalization of the reference's 4 side streams decoded by pthreads
 (/root/reference/src/roxmain/cr-coder.c:334-388): instead of 4 streams and 4
-threads, S streams and S VPU lanes.
+threads, S streams and S vector lanes.
 
 Masking: a lane that has no symbol this step codes the *identity event*
 ``(c, f) = (0, M)``; algebraically ``x -> (x // M)*M + 0 + x % M = x`` with no
@@ -108,21 +108,16 @@ def stream_window_read(win, need, off):
     Every word consumed in one decode step is CONTIGUOUS in the stream
     (events are ordered (step, slot, lane)), so the caller slices a window
     once per step with a scalar-start ``dynamic_slice`` and each slot's
-    per-lane reads resolve without per-lane serialized gathers
-    (~0.28us/index on TPU, PERF.md).  Three bit-identical strategies,
-    selected by ``CPX_STREAM_READ`` (same stream format either way;
-    default ``auto`` = onehot below 1024 lanes, gather at >= 1024 — the
-    round-5 lane sweep in PERF.md: onehot's [S, S] term wins small S,
-    gather's flat marginal cost removes the S^2 cliff at high S):
+    per-lane reads resolve inside that window.  Three bit-identical
+    strategies, selected by ``CPX_STREAM_READ`` (same stream format
+    either way; default ``auto`` = gather at every lane count, the
+    fastest on the H100 at S=512: PERF.md, stream-read table):
 
     - ``onehot``: exact one-hot f32 matvec, [S, S] work per call —
-      quadratic in lanes, the measured S=512 winner of round 3.
-    - ``sort``: two stable [S] key/value sorts (rank -> lane, then lane
-      -> word), O(S log^2 S) — built for the S >= 1024 regime where the
-      one-hot's [S, S] term dominates the decode step.
-    - ``gather``: plain XLA gather at monotone indices — the gather
-      engine's fixed dispatch dominates below ~2048 lanes but its
-      marginal cost is flat in S.
+      quadratic in lanes.
+    - ``sort``: two [S] key/value sorts on unique keys (rank -> lane,
+      then lane -> word), O(S log^2 S).
+    - ``gather``: plain XLA gather at monotone indices, linear in S.
 
     Returns (words, new_off).
     """
@@ -138,7 +133,7 @@ def stream_window_read(win, need, off):
     idx = (off + acc - inc).astype(jnp.int32)
     strategy = STREAM_READ
     if strategy == "auto":
-        strategy = "onehot" if s < 1024 else "gather"
+        strategy = "gather"
     if strategy == "sort":
         lane = _jax.lax.broadcasted_iota(jnp.int32, (s,), 0)
         rk = (acc - inc).astype(jnp.int32)  # 0..m-1 on needing lanes
@@ -163,7 +158,8 @@ def stream_window_read(win, need, off):
             _jax.lax.broadcasted_iota(jnp.int32, (s, win.shape[0]), 1)
             == idx[:, None]
         ) & need[:, None]
-        # 0/1 matrix x u16 values: exact at Precision.HIGHEST (int < 2^24)
+        # 0/1 matrix x u16 values: exact at Precision.HIGHEST (true fp32,
+        # int < 2^24, one nonzero term per output); TF32 would round them
         w = jnp.dot(
             oh.astype(jnp.float32),
             win.astype(jnp.float32),
@@ -180,8 +176,7 @@ def stream_positions(emit_mask_flat, base):
     current read base, returns (indices, new_base): ``indices[i]`` is the
     stream position of event i's word (meaningful only where the mask is
     set).  Integer Hillis-Steele prefix sum: exact on every backend
-    (jnp.cumsum lowers sequentially on TPU; f32 matmuls are bf16-inexact
-    there).
+    (log2(S) whole-vector rounds).
     """
     s = emit_mask_flat.shape[0]
     inc = emit_mask_flat.astype(jnp.uint32)

@@ -1,8 +1,7 @@
 """Multi-host runtime: jax.distributed + a host-spanning device mesh.
 
 The reference has no distributed anything (single process, pthreads only —
-SURVEY.md §2.5); this module provides the TPU-native scale-out path the
-north star asks for (≥85% scaling to 2 hosts, BASELINE.md):
+SURVEY.md §2.5); this module provides the multi-host scale-out path:
 
   * ``initialize`` brings up ``jax.distributed`` (gloo collectives make the
     same code path testable with multi-process CPU, see
@@ -16,7 +15,8 @@ north star asks for (≥85% scaling to 2 hosts, BASELINE.md):
     then the padded payload bytes (``multihost_utils.process_allgather``),
     and every host reconstructs the archive in file order — the
     reference's ordered fwrite loop (src/main.c:198-205) as an ordered
-    gather.  Collectives ride ICI within a slice and DCN across slices.
+    gather.  XLA hands the collectives to NCCL on GPUs (NVLink within a
+    host, the network across hosts) and to gloo on the CPU.
 
 Single-process degenerate behavior is bit-identical to
 ``parallel.mesh.encode_blocks`` (asserted by tests).

@@ -49,11 +49,10 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "dp") -> Mesh:
 # --------------------------------------------------------------------------
 # Single-device block batching: vmap G blocks through ONE scan.
 #
-# The per-step cost of the lock-step codec is dominated by fixed-dispatch
-# random-access ops (~15-25 us dispatch + tens of ns marginal per row,
-# PERF.md round-2 probes), so running G blocks' steps together in one scan
-# multiplies bytes/step at far less than Gx the step cost.  This is the
-# single-chip counterpart of the mesh sharding above (which needs G real
+# Running G blocks' steps together in one scan widens every step G-fold
+# at a fixed step count; whether that beats G sequential scans on the
+# GPU is not yet measured (ROADMAP Queue 1 item 3a).  This is the
+# single-device counterpart of the mesh sharding above (which needs G real
 # devices); payloads are bit-identical to sequential encode_block calls
 # because each block's table state is independent (leading vmap axis).
 # --------------------------------------------------------------------------

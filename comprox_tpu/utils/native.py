@@ -106,7 +106,7 @@ def _e8e9_python(buf: np.ndarray, vbase: int, vsize: int, en_de: int) -> None:
 def f2_execute(
     tok: np.ndarray, min_len: int, n: int
 ) -> Optional[np.ndarray]:
-    """Materialize mode-'F' output bytes from the TPU-decoded token plane
+    """Materialize mode-'F' output bytes from the device-decoded token plane
     (csrc/native.c f2_execute): values < 256 are literal bytes, values
     >= 256 are matches (dist << 8) | (len - min_len).  ``n`` is the
     expected output size; returns None (raising is the caller's job) when

@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock stats and a stderr progress
 meter (src/main.c:113-117,315-329; roxmain/cr-coder.c:37-49).  Equivalents
-here plus what TPU work actually needs: stage timers that force device
+here plus what accelerator work actually needs: stage timers that force device
 completion, and an optional ``jax.profiler`` trace context for Perfetto/
 TensorBoard inspection.
 """
@@ -10,6 +10,7 @@ TensorBoard inspection.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import sys
 import time
 from dataclasses import dataclass, field
@@ -65,6 +66,25 @@ def device_trace(log_dir: Optional[str]):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def card_info() -> str:
+    """The GPU's name and power limit as nvidia-smi reports them (a card
+    may be set below its maximum and then runs slower under load, so every
+    measurement carries this).  Runs nvidia-smi in a child process, which
+    stays off JAX; raises OSError or CalledProcessError without one."""
+    r = subprocess.run(
+        [
+            "nvidia-smi",
+            "--query-gpu=name,power.limit",
+            "--format=csv,noheader",
+        ],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    )
+    return "; ".join(r.stdout.strip().splitlines())
 
 
 class Progress:

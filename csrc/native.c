@@ -1,9 +1,9 @@
 /* comprox_tpu native runtime helpers.
  *
  * Host-side hot loops that are inherently sequential or branchy and thus
- * belong in native code rather than on the TPU: the x86 E8/E9 call-target
- * transform (sequential 4-byte operand skip), dictionary substitution
- * loops, and stream compaction.  Mirrors the role of the reference's C
+ * belong in native code rather than on the accelerator: the x86 E8/E9
+ * call-target transform (sequential 4-byte operand skip), dictionary
+ * substitution loops, and stream compaction.  Mirrors the role of the reference's C
  * runtime around its codec core (/root/reference/src/filter_x86opcode.h,
  * cr-diccode.c) — re-implemented from its documented behavior, not copied.
  *
@@ -286,12 +286,12 @@ int64_t dict_count_c(const uint8_t *inp, int64_t n, int32_t space_mode,
 /* ---------------------------------------------------------------------- */
 /* Mode-'F' sequence executor (decode half of the fast profile).          */
 /*                                                                        */
-/* The TPU scan entropy-decodes tokens (comprox_tpu/codec/fast.py) and    */
+/* The device scan entropy-decodes tokens (comprox_tpu/codec/fast.py) and */
 /* ships one u32 per token: values < 256 are literal bytes; values >=     */
 /* 256 are matches packed (dist << 8) | (len - min_len), dist >= 1        */
 /* (repeat distances already resolved on-device).  This materializes the  */
 /* output bytes at memcpy speed — the sequential LZ copy chain is the     */
-/* one dependency lock-step TPU lanes cannot express without paying a     */
+/* one dependency lock-step device lanes cannot express without paying a  */
 /* gather per byte (the round-3 F decoder's per-step copy machinery,      */
 /* PERF.md).  The reference runs its whole codec on the host for the      */
 /* same reason (roxmain/cr-coder.c decode loop); here only this O(n)      */
